@@ -59,7 +59,7 @@ int64_t sig_dedup(const float* vals, const uint8_t* masked, int64_t n,
 // ---------------------------------------------------------------------------
 // Exact k-d tree over overlapping windows of a flat value array.
 // Point i has coordinates vals[i + d] for d in [0, dim); there are
-// n_vals - dim + 1 points.  Used as the golden oracle for the TPU bucketed
+// n_vals - dim + 1 points.  Used as the golden oracle for the device
 // radius search and as the CPU baseline engine.
 // ---------------------------------------------------------------------------
 

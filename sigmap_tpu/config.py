@@ -48,7 +48,8 @@ class IndexConfig:
     max_leaf: int = 20          # kept for .pt format parity (sigmap.cc:1426)
     mask_frequency: float = 0.0002   # high-freq k-mer mask (sigmap.cc:1014)
     dedup_delta: float = 0.01   # consecutive-point dedup (spatial_index.cc:46)
-    # TPU search-structure knobs (no reference equivalent: replaces nanoflann)
+    # device search-structure knobs (no reference equivalent: replaces
+    # nanoflann)
     bucket_dims: int = 6        # leading window dims used for grid bucketing
     # cell width per bucketed dim, in units of sqrt(search_radius); smaller
     # cells = fewer candidates but more probes (3 cells/dim at 1.0, 2 at 2.0)
@@ -70,7 +71,7 @@ class ChainingConfig:
     # gap gates (spatial_index.cc:511-512)
     max_gap_scale: float = 5.0
     min_gap_scale: float = 0.75
-    # TPU banded-scan window (device chainer); host/native chainer is exact.
+    # banded-scan window (device chainer); host/native chainer is exact.
     device_band: int = 64
 
 
@@ -103,7 +104,7 @@ class MappingConfig:
 
 @dataclass(frozen=True)
 class RuntimeConfig:
-    """TPU execution knobs (no reference equivalent)."""
+    """Device execution knobs (no reference equivalent)."""
 
     read_batch: int = 128         # reads mapped concurrently per device step
     # host-side worker threads (the reference's -t, sigmap.cc:1340-1341):

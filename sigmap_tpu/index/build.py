@@ -1,6 +1,6 @@
 """Reference signal index construction (host side).
 
-TPU-first replacement for Sigmap's index path (sigmap.cc:999-1046,
+Device-first replacement for Sigmap's index path (sigmap.cc:999-1046,
 spatial_index.cc:33-130): instead of a nanoflann k-d tree, the point cloud
 is organized for *dense batched* radius search on device:
 

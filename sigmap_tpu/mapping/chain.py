@@ -3,8 +3,8 @@
 Host-side exact implementation of GenerateChains (spatial_index.cc:276-577):
 the DP inner loop (banded, skip-capped) runs in native C++ per
 (reference sequence, strand) group; selection/traceback/MAPQ are tiny and
-stay in numpy/Python.  The device chainer for the all-TPU path is the
-fused Pallas kernel in ops/chain_fused.py.
+stay in numpy/Python.  The device chainer for the turbo path is
+ops/chain_fused.py.
 
 Semantics preserved:
 * anchors sorted by (target, query, distance) per group, carried anchors

@@ -1,6 +1,6 @@
 """Mapping drivers: whole-read batch mode and streaming mode.
 
-TPU-first reformulation of Sigmap::Map (sigmap.cc:243-547) and
+Batched reformulation of Sigmap::Map (sigmap.cc:243-547) and
 Sigmap::StreamingMap (sigmap.cc:549-880).  The reference parallelizes with
 an OpenMP taskloop over reads; here reads advance in lockstep *wavefronts*:
 

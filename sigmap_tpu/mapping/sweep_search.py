@@ -26,13 +26,24 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ..ops.sweep_kernel import BLOCK, sweep_search
+from ..ops.sweep_kernel import sweep_search
 
 BIG = np.int32(2**31 - 1)
 # Padded/invalid seeds: dims < index.dim set to SEED_PAD; after rotation
 # they land far outside the grid (clipped to the trailing edge cell) and
 # their d^2 dominates every radius test, so they never match.
 SEED_PAD = 2.0e9
+
+
+def rotate(x: jax.Array, mu: jax.Array, rot: jax.Array) -> jax.Array:
+    """[N, dim] raw coords -> the index's PCA basis, (x - mu) @ rot.
+
+    HIGHEST keeps the product in full f32: a GPU may otherwise run an f32
+    matmul in TF32 (~10 mantissa bits), and the strict d^2 < radius test
+    would then disagree with the host-rotated window store
+    (index/sweep.py) far outside the f32 rounding band."""
+    return jnp.matmul(x - mu[None, :], rot,
+                      precision=jax.lax.Precision.HIGHEST)
 
 
 def seed_cell_bounds(qr: jax.Array, radius: float, w: float, origin,
@@ -73,12 +84,12 @@ def seed_cell_bounds(qr: jax.Array, radius: float, w: float, origin,
 
 @partial(jax.jit, static_argnames=("K", "TILE", "radius", "dim",
                                   "block", "radixes", "span", "cell_width",
-                                  "interpret", "nwave"))
+                                  "impl"))
 def sweep_round(
     seeds: jax.Array,     # [Q, 8] f32 RAW coords (invalid seeds = SEED_PAD)
     cum: jax.Array,       # [prod(radixes)+1] i32 cumulative cell table
     tiles: jax.Array,     # [T, 8, TILE] f32 (rotated coords)
-    meta: jax.Array,      # [T, 8, TILE//8] i32
+    meta: jax.Array,      # [T, TILE] i32
     rot: jax.Array,       # [dim, dim] f32 PCA rotation
     mu: jax.Array,        # [dim] f32 rotation center
     origin: jax.Array,    # [bd] f32 grid origin (rotated coords)
@@ -86,17 +97,17 @@ def sweep_round(
     K: int = 16,
     TILE: int = 1024,
     dim: int = 6,
-    block: int = BLOCK,
+    block: int = 32,
     radixes: tuple = (),
     span: int = 3,
     cell_width: float = 0.2828427,
-    interpret: bool = False,
-    nwave: int = 3,
+    impl: str | None = None,
 ):
     """Full radius search for one round's seeds, in ORIGINAL seed order.
 
     Returns (m_meta [Q, K] i32, m_d2 [Q, K] f32, cnt [Q] i32 exact totals,
-    wrote [Q] i32 slots filled)."""
+    wrote [Q] i32 slots filled).  impl names the search implementation
+    (ops/impl.py; None = the backend's default)."""
     Q0 = seeds.shape[0]
     if Q0 % block:
         pad = block - Q0 % block
@@ -109,8 +120,8 @@ def sweep_round(
     NO = span ** (bd - 1)  # probe offsets
     w = np.float32(cell_width)
     delta = np.float32(np.sqrt(radius))
-    # rotate into the index basis; rows >= dim stay zero (kernel pads)
-    qr_d = (seeds[:, :dim] - mu[None, :]) @ rot          # [Q, dim]
+    # rotate into the index basis; rows >= dim stay zero
+    qr_d = rotate(seeds[:, :dim], mu, rot)               # [Q, dim]
     qr8 = jnp.concatenate(
         [qr_d, jnp.zeros((Q, 8 - dim), jnp.float32)], axis=1
     )
@@ -165,46 +176,17 @@ def sweep_round(
     )  # [G, NO+1]
     blockmeta = jnp.concatenate(
         [m_start.astype(jnp.int32), cums], axis=1
-    ).T  # [2*NO+1, G]
-    # The per-block table rides SMEM scalar prefetch (1 MB): chunk the
-    # launch so each call's table stays small.  Every chunk is padded to
-    # EXACTLY MAXG blocks (padding blocks have total == 0 and exit
-    # immediately), so one Mosaic kernel compile serves every batch size
-    # (the grid count is baked into the kernel, and fresh compiles of this
-    # kernel run minutes-long for some block sizes).
-    MAXG = 2048
-    n_chunks = max(1, -(-G // MAXG))
-    Gp = n_chunks * MAXG
-    if Gp != G:
-        qr_s = jnp.concatenate([
-            qr_s,
-            jnp.zeros(((Gp - G) * block, 8), jnp.float32),
-        ], axis=0)
-        blockmeta = jnp.concatenate([
-            blockmeta,
-            jnp.zeros((blockmeta.shape[0], Gp - G), jnp.int32),
-        ], axis=1)
-    parts = []
-    for g0 in range(0, Gp, MAXG):
-        parts.append(sweep_search(
-            jax.lax.slice_in_dim(qr_s, g0 * block, (g0 + MAXG) * block),
-            jax.lax.slice_in_dim(blockmeta, g0, g0 + MAXG, axis=1),
-            tiles, meta,
-            radius=radius, K=K, TILE=TILE, dim=dim, block=block,
-            interpret=interpret, nwave=nwave,
-        ))
-    if len(parts) == 1:
-        m_meta, m_d2, m_cnt = parts[0]
-    else:
-        m_meta = jnp.concatenate([o[0] for o in parts], axis=0)
-        m_d2 = jnp.concatenate([o[1] for o in parts], axis=0)
-        m_cnt = jnp.concatenate([o[2] for o in parts], axis=0)
+    )  # [G, 2*NO+1]
+    m_meta, m_d2, cnt, wrote = sweep_search(
+        qr_s, blockmeta, tiles, meta,
+        radius=radius, K=K, TILE=TILE, dim=dim, block=block, impl=impl,
+    )
     iperm = iperm[:Q0]
     return (
         jnp.take(m_meta, iperm, axis=0),
         jnp.take(m_d2, iperm, axis=0),
-        jnp.take(m_cnt[:, 0], iperm),
-        jnp.take(m_cnt[:, 1], iperm),
+        jnp.take(cnt, iperm),
+        jnp.take(wrote, iperm),
     )
 
 

@@ -1,7 +1,7 @@
 """ctypes bindings for the native C++ core (native/core.cc).
 
-The library is built lazily on first use (``make -C native``) if the shared
-object is missing.  Provides:
+The library is built from native/core.cc on first use (``make -C native``)
+if the shared object is missing; it is never committed.  Provides:
 
 * :func:`dedup` — sequential point-cloud dedup (spatial_index.cc:33-57);
 * :class:`KdTree` — exact radius-search oracle with nanoflann-parity
@@ -10,7 +10,8 @@ object is missing.  Provides:
   behavior (spatial_index.cc:418-550).
 
 Every entry point has a numpy fallback (slow, small inputs only) so the
-pure-Python path still works without a toolchain.
+pure-Python path still works without a toolchain; a failed build is
+reported on stderr once, and :func:`require` raises instead.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import os
 import subprocess
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -25,24 +27,57 @@ import numpy as np
 _ROOT = Path(__file__).resolve().parent.parent
 _SO = Path(__file__).resolve().parent / "_native" / "libsigmap_core.so"
 _lib = None
+_error: str | None = None
+
+
+def _fail(msg: str):
+    global _error
+    if _error is None:
+        _error = msg
+        print(f"sigmap_tpu.native: {msg}; using the numpy fallback",
+              file=sys.stderr)
+    return None
+
+
+def _build():
+    """make -C native under a file lock, into a temporary name that is
+    renamed into place: concurrent processes (test workers) build once
+    and never load a half-written library."""
+    if _SO.exists():
+        return
+    import fcntl
+
+    _SO.parent.mkdir(parents=True, exist_ok=True)
+    with open(_SO.parent / ".build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if _SO.exists():
+            return
+        tmp = _SO.with_name(f"{_SO.name}.{os.getpid()}.tmp")
+        subprocess.run(
+            ["make", "-C", str(_ROOT / "native"), f"OUT={tmp}"],
+            check=True, capture_output=True, text=True,
+        )
+        os.replace(tmp, _SO)
 
 
 def _load():
-    global _lib
-    if _lib is not None:
+    if _lib is not None or _error is not None:
         return _lib
-    if not _SO.exists():
-        try:
-            subprocess.run(
-                ["make", "-C", str(_ROOT / "native")],
-                check=True, capture_output=True,
-            )
-        except Exception:
-            return None
+    try:
+        _build()
+    except subprocess.CalledProcessError as e:
+        return _fail(f"building {_SO.name} failed:\n{e.stderr[-2000:]}")
+    except OSError as e:
+        return _fail(f"building {_SO.name} failed: {e}")
     try:
         lib = ctypes.CDLL(str(_SO))
-    except OSError:
-        return None
+    except OSError as e:
+        return _fail(f"loading {_SO} failed: {e}")
+    return _bind(lib)
+
+
+def _bind(lib):
+    global _lib
     c = ctypes
     lib.sig_dedup.restype = c.c_int64
     lib.sig_dedup.argtypes = [
@@ -88,6 +123,15 @@ def _load():
 
 def available() -> bool:
     return _load() is not None
+
+
+def require():
+    """The native library, built if needed; raises if it cannot be built
+    or loaded (for callers where the numpy fallback is not acceptable)."""
+    lib = _load()
+    if lib is None:
+        raise RuntimeError(f"native library unavailable: {_error}")
+    return lib
 
 
 def _ptr(a: np.ndarray):

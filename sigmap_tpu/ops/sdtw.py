@@ -5,7 +5,7 @@ DTW with free start/end on the target (current_row[0] = 0 per row, result =
 min over rows of current_row[Q]), cost |t_i - q_j|, transitions
 (diag, up, left).
 
-TPU-first formulation: the intra-row dependency
+Data-parallel formulation: the intra-row dependency
     cur[j] = cost[j] + min(prev[j-1], prev[j], cur[j-1])
 is an associative prefix problem.  With a[j] = cost[j] + min(prev[j-1],
 prev[j]) and C[j] = prefix sum of cost:

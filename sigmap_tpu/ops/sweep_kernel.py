@@ -1,31 +1,33 @@
-"""Pallas TPU kernel: streaming merge-join radius search ("sweep").
+"""Streaming merge-join radius search ("sweep"): plain XLA and Triton.
 
-The TPU-native replacement for per-seed k-d traversal
-(/root/reference/src/spatial_index.cc:366, nanoflann) designed around what
-v5e actually does fast: contiguous DMA streams and dense VPU math.
-Measured on this chip, XLA row gathers run at ~2.4 GB/s and per-range DMA
-walks are latency-bound; the sweep instead:
+The replacement for per-seed k-d traversal
+(/root/reference/src/spatial_index.cc:366, nanoflann).  The round's seeds
+arrive sorted by their coarse grid cell key (mapping/sweep_search.py), so a
+block of consecutive seeds probes a narrow, contiguous band of the
+cell-sorted window store (index/sweep.py).  For each block, the UNION of
+its candidate tile ranges is streamed tile by tile; every (seed, window)
+pair gets an exact f32 squared distance accumulated as sum_d (w_d - q_d)^2
+(nanoflann's own formula) and the strict d^2 < radius test
+(nanoflann.hpp:249).  Union slop only adds evaluations that fail the test,
+never changes the match set.
 
-* sorts the round's seeds by their coarse grid cell key (XLA-side), so a
-  block of BLOCK (default 128) consecutive seeds probes a narrow,
-  contiguous band of the cell-sorted window array (index/sweep.py);
-* per (seed-block, probe offset), streams the UNION of the block's
-  candidate ranges as whole pre-tiled [8, TILE] window tiles — large
-  contiguous DMAs, double-buffered across the flattened (offset, tile)
-  sequence;
-* evaluates exact f32 squared distances (direct (w-q)^2 accumulation,
-  nanoflann's own formula) for all BLOCK seeds x TILE windows densely on
-  the VPU (strict d^2 < radius — nanoflann.hpp:249 parity; the union slop
-  only adds evaluations that fail the test, never changes the match set);
-* extracts matches with a wave drain keeping the K SMALLEST d^2 per seed
-  (replacement against the running K-th-smallest bound, so the
-  true-locus match survives truncation), with exact total-match counts
-  so K-truncation is observable.
+Per seed the K SMALLEST d^2 are kept (the true-locus match, usually the
+minimum of a crowded ball, survives truncation), with exact total match
+counts so K-truncation is observable.  The kernel breaks d^2 ties by the
+window's meta; the plain version by scan order.  Callers get the slots
+sorted by (d^2, meta) (sort_slots).
 
-Work model: pair-evaluations are set by the per-block union volume
-(roughly invariant in seeds-per-cell density), so bigger read batches
-amortize the sweep's fixed costs; the per-pair cost is a handful of VPU
-fused multiply-adds.
+Two implementations share that contract (ops/impl.py picks one):
+
+* ``_sweep_plain``: a loop over the largest per-block tile count; each
+  step gathers every block's next tile (blocks past their count are
+  masked), computes the [Q, TILE] distances and merges them into the
+  running K-best with ``lax.top_k`` over [K + TILE].
+* ``_sweep_triton``: one Pallas program per seed block, lowered through
+  Triton.  The program loads its own row of the block table, loops over
+  its own tile count (no skew), evaluates [block, SUB] sub-tiles in
+  registers and inserts candidates below the running K-th bound one
+  minimum at a time (at most K + 1 inserts per sub-tile and row).
 """
 
 from __future__ import annotations
@@ -34,261 +36,213 @@ from functools import partial
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-BLOCK = 128         # default seeds per block (multiple of 8)
-INF = 1.0e30
+from . import impl as _impl
+
+INF = np.float32(1.0e30)
+IMAX = np.int32(2**31 - 1)
+SUB = 128           # Triton sub-tile width: [block, SUB] distances in registers
 
 
-def _kernel(
-    bm_ref,        # [2*NO+1, G] i32 SMEM (scalar prefetch): rows 0..NO-1 =
-                   # first tile per offset, rows NO..2*NO = exclusive tile
-                   # cumsum (transposed: SMEM lane-pads the last dim to 128)
-    seeds_ref,     # [BLOCK, 8] f32 VMEM
-    tiles_ref,     # [T, 8, TILE] f32 ANY (HBM)
-    meta_ref,      # [T, 8, TILE//8] i32 ANY (HBM)
-    out_meta_ref,  # [BLOCK, K] i32
-    out_d2_ref,    # [BLOCK, K] f32
-    out_cnt_ref,   # [BLOCK, 2] i32 (total matches, written slots)
-    wbuf, mbuf, dbuf, wscr, sem, msem,
-    *, radius, K, TILE, dim, block, n_offsets, nwave,
-):
-    g = pl.program_id(0)
-    BLOCK = block
-    col = jax.lax.broadcasted_iota(jnp.int32, (BLOCK, TILE), 1)
-    kcol = jax.lax.broadcasted_iota(jnp.int32, (BLOCK, K), 1)
-    # hoist this program's SMEM table row into register scalars (the
-    # decode below runs 2x per DMA step)
-    starts = [bm_ref[oo, g] for oo in range(n_offsets)]
-    cums = [bm_ref[n_offsets + oo, g] for oo in range(n_offsets + 1)]
-    total = cums[n_offsets]
-    sq = seeds_ref[...]
+def _sweep_plain(seeds, blockmeta, tiles, meta, *, radius, K, TILE, dim,
+                 block):
+    Q = seeds.shape[0]
+    G = Q // block
+    NO = (blockmeta.shape[1] - 1) // 2
+    starts = blockmeta[:, :NO]                         # [G, NO]
+    cums = blockmeta[:, NO:]                           # [G, NO+1]
+    total = cums[:, NO]                                # [G]
+    q = seeds.reshape(G, block, 8)
+    rad = np.float32(radius)
 
-    out_meta_ref[...] = jnp.zeros((BLOCK, K), jnp.int32)
-    # slots internally hold +INF when empty so the replacement bound
-    # (max over kept) is correct; cleaned to 0 before the kernel returns
-    out_d2_ref[...] = jnp.full((BLOCK, K), INF, jnp.float32)
-    wscr[...] = jnp.zeros((BLOCK, 1), jnp.int32)
-
-    def tile_of(s):
-        """Flat step -> global tile index (offset decoded via cumsum)."""
-        t = starts[0] + s
-        for oo in range(1, n_offsets):
-            take = cums[oo] <= s
-            t = jnp.where(take, starts[oo] + (s - cums[oo]), t)
-        return t
-
-    def dma(slot, s):
-        t = tile_of(s)
-        return (
-            pltpu.make_async_copy(tiles_ref.at[t], wbuf.at[slot], sem.at[slot]),
-            pltpu.make_async_copy(meta_ref.at[t], mbuf.at[slot], msem.at[slot]),
-        )
-
-    @pl.when(total > 0)
-    def _():
-        for c in dma(0, 0):
-            c.start()
-
-    def step(s, cnt):
-        slot = jax.lax.rem(s, 2)
-
-        @pl.when(s + 1 < total)
-        def _():
-            for c in dma(1 - slot, s + 1):
-                c.start()
-
-        for c in dma(slot, s):
-            c.wait()
-        wt = wbuf[slot]                        # [8, TILE]
-        mtile = mbuf[slot]                     # [8, TILE//8] i32
-        # d^2 = sum_d (w_d - q_d)^2 accumulated DIRECTLY on the VPU in f32
-        # (nanoflann's own formula, nanoflann.hpp:375-398) — the earlier
-        # MXU expansion |q|^2+|w|^2-2q.w needed a 6-pass f32 matmul to get
-        # comparable rounding and measured ~3x slower than these dim
-        # fused multiply-adds at production volumes
-        acc = jnp.zeros((BLOCK, TILE), jnp.float32)
+    def step(s, carry):
+        kd, km, cnt = carry
+        valid = s < total
+        # offset containing flat step s: the last offset whose cumsum <= s
+        oo = jnp.sum(cums[:, 1:NO] <= s, axis=1)[:, None]
+        t = (jnp.take_along_axis(starts, oo, 1)
+             + s - jnp.take_along_axis(cums, oo, 1))[:, 0]
+        t = jnp.where(valid, t, 0)
+        w = jnp.take(tiles, t, axis=0)                 # [G, 8, TILE]
+        mt = jnp.take(meta, t, axis=0)                 # [G, TILE]
+        d2 = jnp.zeros((G, block, TILE), jnp.float32)
         for d in range(dim):
-            diff = wt[d, :][None, :] - sq[:, d][:, None]
-            acc += diff * diff
-        match = acc < radius                   # strict: nanoflann parity
-        nrow = jnp.sum(match.astype(jnp.int32), axis=1, keepdims=True)
-        cnt = cnt + nrow
+            diff = w[:, None, d, :] - q[:, :, d, None]
+            d2 = d2 + diff * diff
+        match = (d2 < rad) & valid[:, None, None]
+        cnt = cnt + match.sum(axis=2).reshape(Q).astype(jnp.int32)
+        cand = jnp.where(match, d2, INF).reshape(Q, TILE)
+        neg, idx = jax.lax.top_k(-jnp.concatenate([kd, cand], axis=1), K)
+        from_old = idx < K
+        old_m = jnp.take_along_axis(km, jnp.minimum(idx, K - 1), axis=1)
+        new_m = jnp.take_along_axis(
+            mt[:, None, :], jnp.maximum(idx - K, 0).reshape(G, block, K),
+            axis=2,
+        ).reshape(Q, K)
+        return -neg, jnp.where(from_old, old_m, new_m), cnt
 
-        rowsz = TILE // 8
-        mcol = jax.lax.broadcasted_iota(jnp.int32, (BLOCK, rowsz), 1)
+    kd, km, cnt = jax.lax.fori_loop(
+        0, jnp.max(total, initial=0), step,
+        (jnp.full((Q, K), INF), jnp.zeros((Q, K), jnp.int32),
+         jnp.zeros((Q,), jnp.int32)),
+    )
+    kept = kd < INF
+    return (jnp.where(kept, km, 0), jnp.where(kept, kd, 0.0), cnt,
+            kept.sum(axis=1).astype(jnp.int32))
 
-        # CLOSEST-K drain with replacement.  Kept slots are the K smallest
-        # d^2 seen so far (ties broken by scan order), matching what a
-        # truncating reference user would want from a cap — and, far more
-        # importantly, guaranteeing the true-locus match (usually the
-        # global minimum of a crowded ball) survives K-truncation (the
-        # earlier first-K-in-scan-order drain dropped it whenever K slots
-        # filled before its tile, the dominant recall loss at 12 Mb).
-        # tau = current K-th smallest bound (radius until slots fill, then
-        # max over kept): only candidates BELOW tau enter dbuf, so once
-        # slots hold tight matches nearly every later tile skips the
-        # drain entirely.  Each wave extracts the 8 row-group minima and
-        # inserts them sequentially (append while slots open, else
-        # replace the current worst).  NWAVE straight-line waves cover
-        # the common case; a residual while-loop finishes deep tiles
-        # (while-loop carries a SCALAR: Mosaic can't legalize vector
-        # carries here).
-        NWAVE = nwave
 
-        def tau():
-            full = wscr[...] >= K
-            worst = jnp.max(out_d2_ref[...], axis=1, keepdims=True)
-            return jnp.where(full, jnp.minimum(worst, radius), radius)
+def _sweep_kernel(bm_ref, seeds_ref, tiles_ref, meta_ref,
+                  om_ref, od_ref, ocnt_ref, ow_ref,
+                  *, radius, K, KP, TILE, dim, block, n_offsets):
+    g = pl.program_id(0)
+    NO = n_offsets
+    starts = [bm_ref[g, oo] for oo in range(NO)]
+    cums = [bm_ref[g, NO + oo] for oo in range(NO + 1)]
+    total = cums[NO]
+    rows = pl.ds(g * block, block)
+    q = [seeds_ref[d, rows] for d in range(dim)]        # dim x [block]
+    col = jax.lax.broadcasted_iota(jnp.int32, (block, SUB), 1)
+    kcol = jax.lax.broadcasted_iota(jnp.int32, (block, KP), 1)
+    rad = np.float32(radius)
 
-        def wave():
-            """One extraction wave, in place: dbuf (masked distances,
-            [BLOCK, TILE]; row-group r = lanes [r*rowsz, (r+1)*rowsz))
-            and wscr (write cursors) are VMEM scratch mutated directly —
-            SSA copies of the 512 KB distance buffer across unrolled
-            waves blew the 16 MB scoped-vmem stack."""
-            c_wrote = wscr[...]
-            mins, pcols, mvals = [], [], []
-            for r in range(8):
-                row = dbuf[:, r * rowsz:(r + 1) * rowsz]
-                mn_r = jnp.min(row, axis=1, keepdims=True)      # [B, 1]
-                pcol_r = jnp.min(
-                    jnp.where(row == mn_r, mcol, rowsz), axis=1,
-                    keepdims=True,
-                )
-                mval_r = jnp.sum(
-                    jnp.where(mcol == pcol_r, mtile[r, :][None, :], 0),
-                    axis=1, keepdims=True,
-                )
-                mins.append(mn_r)
-                pcols.append(pcol_r)
-                mvals.append(mval_r)
-            has = [mins[r] < radius for r in range(8)]
-            n_put = jnp.zeros((BLOCK, 1), jnp.int32)
-            out_m = out_meta_ref[...]
-            out_d = out_d2_ref[...]
-            for r in range(8):
-                # sequential insert: empty slots are +INF, so `worst` is
-                # the replacement bound only once all K slots are real
-                worst = jnp.max(out_d, axis=1, keepdims=True)
-                wi = jnp.min(
-                    jnp.where(out_d == worst, kcol, K), axis=1,
-                    keepdims=True,
-                )
-                notfull = (c_wrote + n_put) < K
-                slot = jnp.where(notfull, c_wrote + n_put, wi)
-                put = has[r] & (notfull | (mins[r] < worst))
-                hit = (kcol == slot) & put
-                out_m = jnp.where(hit, mvals[r], out_m)
-                out_d = jnp.where(hit, mins[r], out_d)
-                n_put = n_put + (put & notfull).astype(jnp.int32)
-            out_meta_ref[...] = out_m
-            out_d2_ref[...] = out_d
-            # retire every extracted row-min
-            for r in range(8):
-                sl = pl.ds(r * rowsz, rowsz)
-                dbuf[:, sl] = jnp.where(
-                    (mcol == pcols[r]) & has[r], INF, dbuf[:, sl]
-                )
-            wscr[...] = c_wrote + n_put
+    def insert(carry):
+        """Move each row's smallest candidate, by (d^2, meta), into its
+        K-best if it beats the row's worst kept (d^2, meta) (open slots
+        hold (INF, 0) and are filled first); a row whose smallest fails is
+        done for this sub-tile.  Windows' metas are unique, so the kept
+        set is the K smallest by (d^2, meta) whatever the scan order."""
+        cand, mt, kd, km = carry
+        mn = jnp.min(cand, axis=1)
+        at_mn = cand == mn[:, None]
+        mv = jnp.min(jnp.where(at_mn, mt[None, :], IMAX), axis=1)
+        hit = at_mn & (mt[None, :] == mv[:, None])
+        worst = jnp.max(kd, axis=1)
+        at_worst = kd == worst[:, None]
+        wm = jnp.max(jnp.where(at_worst, km, -1), axis=1)
+        wi = jnp.argmax((at_worst & (km == wm[:, None])).astype(jnp.int32),
+                        axis=1).astype(jnp.int32)
+        put = (mn < rad) & ((mn < worst) | ((mn == worst) & (mv < wm)))
+        khit = (kcol == wi[:, None]) & put[:, None]
+        kd = jnp.where(khit, mn[:, None], kd)
+        km = jnp.where(khit, mv[:, None], km)
+        cand = jnp.where(hit | ~put[:, None], INF, cand)
+        return cand, mt, kd, km
 
-        def dbuf_min():
-            rmin = dbuf[:, 0:rowsz]
-            for r in range(1, 8):
-                rmin = jnp.minimum(rmin, dbuf[:, r * rowsz:(r + 1) * rowsz])
-            return jnp.min(rmin, axis=1, keepdims=True)
-
-        def go():
-            # candidates still below the current kept-K bound?
-            return jnp.any(dbuf_min() < tau())
-
-        def extract(_go):
-            wave()
-            return go()
-
-        @pl.when(jnp.any(match & (acc < jnp.broadcast_to(tau(), acc.shape))))
-        def _():
-            dbuf[...] = jnp.where(
-                match & (acc < jnp.broadcast_to(tau(), acc.shape)), acc, INF
+    def tile_step(s, carry):
+        kd, km, cnt = carry
+        t = starts[0] + s
+        for oo in range(1, NO):
+            t = jnp.where(cums[oo] <= s, starts[oo] + (s - cums[oo]), t)
+        for j in range(TILE // SUB):
+            cols = pl.ds(j * SUB, SUB)
+            acc = jnp.zeros((block, SUB), jnp.float32)
+            for d in range(dim):
+                diff = tiles_ref[t, d, cols][None, :] - q[d][:, None]
+                acc = acc + diff * diff
+            match = acc < rad
+            cnt = cnt + jnp.sum(match.astype(jnp.int32), axis=1)
+            # <= : a tie with the worst kept d^2 may still win on meta
+            tau = jnp.max(kd, axis=1)
+            cand = jnp.where(match & (acc <= tau[:, None]), acc, INF)
+            mt = meta_ref[t, cols]
+            _, _, kd, km = jax.lax.while_loop(
+                lambda c: jnp.min(c[0]) < INF, insert, (cand, mt, kd, km)
             )
-            for _ in range(NWAVE):
-                wave()
-            jax.lax.while_loop(lambda g: g, extract, go())
+        return kd, km, cnt
 
-        return cnt
-
-    cnt = jax.lax.fori_loop(
-        0, total, step,
-        jnp.zeros((BLOCK, 1), jnp.int32),
+    # slots K..KP-1 pad K to a power of two: they hold -1 (below every
+    # d^2), so they are never the worst slot, and are cut off outside
+    kd0 = jnp.where(kcol < K, INF, -1.0)
+    kd, km, cnt = jax.lax.fori_loop(
+        0, total, tile_step,
+        (kd0, jnp.zeros((block, KP), jnp.int32),
+         jnp.zeros((block,), jnp.int32)),
     )
-    # empty slots held +INF internally (replacement bound); return 0
-    out_d2_ref[...] = jnp.where(
-        kcol < wscr[...], out_d2_ref[...], 0.0
+    kept = (kd < INF) & (kcol < K)
+    om_ref[rows, :] = jnp.where(kept, km, 0)
+    od_ref[rows, :] = jnp.where(kept, kd, 0.0)
+    ocnt_ref[rows] = cnt
+    ow_ref[rows] = jnp.sum(kept.astype(jnp.int32), axis=1)
+
+
+def _sweep_triton(seeds, blockmeta, tiles, meta, *, radius, K, TILE, dim,
+                  block, interpret=False):
+    Q = seeds.shape[0]
+    G = Q // block
+    if TILE % SUB or block & (block - 1):
+        raise ValueError(
+            f"Triton sweep needs TILE % {SUB} == 0 and a power-of-two "
+            f"block (TILE={TILE}, block={block})"
+        )
+    KP = 1 << (K - 1).bit_length()
+    n_offsets = (blockmeta.shape[1] - 1) // 2
+    m_meta, m_d2, cnt, wrote = pl.pallas_call(
+        partial(_sweep_kernel, radius=radius, K=K, KP=KP, TILE=TILE,
+                dim=dim, block=block, n_offsets=n_offsets),
+        grid=(G,),
+        out_shape=[
+            jax.ShapeDtypeStruct((Q, KP), jnp.int32),
+            jax.ShapeDtypeStruct((Q, KP), jnp.float32),
+            jax.ShapeDtypeStruct((Q,), jnp.int32),
+            jax.ShapeDtypeStruct((Q,), jnp.int32),
+        ],
+        backend="triton",
+        interpret=interpret,
+        compiler_params=plgpu.CompilerParams(num_warps=4, num_stages=2),
+        name="sweep_search",
+    )(blockmeta, seeds.T, tiles, meta)
+    return m_meta[:, :K], m_d2[:, :K], cnt, wrote
+
+
+def sort_slots(m_meta, m_d2, n_kept):
+    """Order each row's first n_kept slots by (d^2, meta) and zero the
+    rest: a canonical slot order, so chaining (which pushes a seed's
+    anchors in slot order) sees the same anchors in the same order from
+    every search path (either implementation, one device or a sharded
+    merge)."""
+    K = m_meta.shape[1]
+    kept = jnp.arange(K)[None, :] < n_kept[:, None]
+    d2, mm = jax.lax.sort(
+        (jnp.where(kept, m_d2, INF), jnp.where(kept, m_meta, IMAX)),
+        dimension=1, num_keys=2,
     )
-    out_cnt_ref[:, pl.ds(0, 1)] = cnt
-    out_cnt_ref[:, pl.ds(1, 1)] = wscr[...]
+    return jnp.where(kept, mm, 0), jnp.where(kept, d2, 0.0)
 
 
-@partial(jax.jit, static_argnames=("K", "TILE", "radius", "dim",
-                                  "block", "interpret", "nwave"))
+@partial(jax.jit, static_argnames=("K", "TILE", "radius", "dim", "block",
+                                  "impl"))
 def sweep_search(
-    seeds: jax.Array,      # [Q, 8] f32, Q multiple of BLOCK, cell-key SORTED
-    blockmeta: jax.Array,  # [2*NO+1, Q//BLOCK] i32: rows 0..NO-1 first tile
-                           # per (block, offset); rows NO..2*NO tile cumsum
-    tiles: jax.Array,   # [T, 8, TILE] f32
-    meta: jax.Array,    # [T, 8, TILE//8] i32
+    seeds: jax.Array,      # [Q, 8] f32, Q multiple of block, cell-key SORTED
+    blockmeta: jax.Array,  # [Q//block, 2*NO+1] i32: cols 0..NO-1 first tile
+                           # per (block, offset); cols NO..2*NO tile cumsum
+    tiles: jax.Array,      # [T, 8, TILE] f32
+    meta: jax.Array,       # [T, TILE] i32
     radius: float,
     K: int = 16,
     TILE: int = 1024,
     dim: int = 6,
-    block: int = BLOCK,
-    interpret: bool = False,
-    nwave: int = 3,
+    block: int = 32,
+    impl: str | None = None,
 ):
-    """Returns (m_meta [Q, K] i32, m_d2 [Q, K] f32, m_cnt [Q, 2] i32).
+    """Returns (m_meta [Q, K] i32, m_d2 [Q, K] f32, cnt [Q] i32, wrote
+    [Q] i32).
 
-    m_cnt[:, 0] = exact total matches (the reference's per-seed anchor
-    count before its 5000 cap, spatial_index.cc:290); m_cnt[:, 1] = slots
-    actually written (== min(total, K))."""
-    Q = seeds.shape[0]
-    G = Q // block
-    n_offsets = (blockmeta.shape[0] - 1) // 2
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(G,),
-        in_specs=[
-            pl.BlockSpec((block, 8), lambda g, *_: (g, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pl.ANY),
-            pl.BlockSpec(memory_space=pl.ANY),
-        ],
-        out_specs=[
-            pl.BlockSpec((block, K), lambda g, *_: (g, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((block, K), lambda g, *_: (g, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((block, 2), lambda g, *_: (g, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        scratch_shapes=[
-            pltpu.VMEM((2, 8, TILE), jnp.float32),
-            pltpu.VMEM((2, 8, TILE // 8), jnp.int32),
-            pltpu.VMEM((block, TILE), jnp.float32),
-            pltpu.VMEM((block, 1), jnp.int32),
-            pltpu.SemaphoreType.DMA((2,)),
-            pltpu.SemaphoreType.DMA((2,)),
-        ],
-    )
-    return pl.pallas_call(
-        partial(_kernel, radius=radius, K=K, TILE=TILE, dim=dim,
-                block=block, n_offsets=n_offsets, nwave=nwave),
-        grid_spec=grid_spec,
-        out_shape=[
-            jax.ShapeDtypeStruct((Q, K), jnp.int32),
-            jax.ShapeDtypeStruct((Q, K), jnp.float32),
-            jax.ShapeDtypeStruct((Q, 2), jnp.int32),
-        ],
-        interpret=interpret,
-        compiler_params=pltpu.CompilerParams(has_side_effects=True),
-    )(blockmeta, seeds, tiles, meta)
+    cnt = exact total matches (the reference's per-seed anchor count
+    before its 5000 cap, spatial_index.cc:290); wrote = slots actually
+    filled (== min(cnt, K)).  Filled slots come first, sorted by (d^2,
+    meta); empty slots hold 0.  impl: see ops/impl.py (None = the
+    backend's default)."""
+    kw = dict(radius=radius, K=K, TILE=TILE, dim=dim, block=block)
+    which = _impl.choose("sweep", impl)
+    if which == _impl.PLAIN:
+        m_meta, m_d2, cnt, wrote = _sweep_plain(
+            seeds, blockmeta, tiles, meta, **kw)
+    else:
+        m_meta, m_d2, cnt, wrote = _sweep_triton(
+            seeds, blockmeta, tiles, meta,
+            interpret=which == _impl.TRITON_INTERPRET, **kw,
+        )
+    return (*sort_slots(m_meta, m_d2, wrote), cnt, wrote)

@@ -1,11 +1,12 @@
 """Multi-host orchestration helpers.
 
 The reference is single-process (OpenMP threads, sigmap.cc:618).  Scaling
-across TPU hosts follows the standard JAX recipe:
+across hosts follows the standard JAX recipe:
 
 * `jax.distributed.initialize()` on every host (controller-less);
 * the global mesh spans all hosts' devices: ("data", "index") as in
-  parallel/turbo_shard.py — intra-slice collectives ride ICI, cross-host DCN;
+  parallel/turbo_shard.py — collectives within a host ride its device
+  links (NVLink), across hosts the network;
 * read I/O stays host-local: each host loads its own shard of the signal
   directory (mirroring the per-thread buffers of sigmap.cc:217-241) and
   feeds its local data-parallel rows of the global batch;

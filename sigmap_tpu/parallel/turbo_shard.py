@@ -1,6 +1,6 @@
 """Multi-chip turbo mapping: reads data-parallel x sweep index sharded.
 
-TPU-native replacement for the reference's only scale-out mechanism (an
+Replacement for the reference's only scale-out mechanism (an
 OpenMP taskloop over reads with per-thread output buffers,
 /root/reference/src/sigmap.cc:618-631,217-241), extended with index
 sharding the reference never had (its k-d tree must fit in one host's
@@ -10,33 +10,30 @@ RAM, spatial_index.cc:132-163):
   sweep tile store (index/sweep.py) is sharded over "index" as contiguous
   tile ranges, each shard with a rebased cumulative cell table — a
   shard's local window range for any cell is clip(cum - shard_start, 0,
-  shard_windows), so per-shard sweeps stay pure local DMA streams;
+  shard_windows), so per-shard sweeps stay purely local streams;
 * each device runs the SAME turbo round body (mapping/turbo.py) on its
   local reads x local tiles; per-seed match slots merge across "index"
   with one all_gather + top-K-by-distance (K = per-seed cap), and exact
-  match totals merge with a psum — the only collectives in the loop, both
-  riding ICI;
+  match totals merge with a psum — the only collectives in the loop;
 * chaining/stop/summary state is data-sharded and index-replicated, so
-  the emitted PAF records are identical to the single-chip turbo engine
-  (up to K-truncation order when a seed exceeds K matches: the merged
-  path keeps the K smallest d^2 across shards).
+  the emitted PAF records are identical to the single-device turbo
+  engine: the merge keeps the K smallest (d^2, meta) across shards, in
+  that order, which is what the single-device search returns.
 
 Scaling contract: reads scale over "data" (the reference's -t analogue),
 genome size scales over "index" (human-scale point clouds split across
-HBMs).  tests/test_turbo_shard.py checks record-for-record PAF equality
-vs single-chip on mesh shapes (4,2), (2,4), (8,1) on the virtual CPU
-mesh; __graft_entry__.dryrun_multichip runs this path end-to-end.
+device memories).  tests/test_turbo_shard.py checks record-for-record
+PAF equality vs single-device on mesh shapes (4,2), (2,4), (8,1) on the
+virtual CPU mesh; `chip_smoke.py --four` checks it on four GPUs.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from functools import partial
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental.shard_map import shard_map
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from ..config import SigmapConfig
@@ -45,6 +42,7 @@ from ..index.sweep import PAD_COORD, SweepIndex
 from ..mapping.turbo import TurboMapper, TurboParams, turbo_round_body
 
 INF = np.float32(1.0e30)
+IMAX = np.int32(2**31 - 1)
 
 
 @dataclass
@@ -52,7 +50,7 @@ class ShardedSweep:
     """SweepIndex split into I contiguous tile ranges + rebased cum."""
 
     tiles: np.ndarray   # [I, Tl, 8, TILE]
-    meta: np.ndarray    # [I, Tl, 8, TILE//8]
+    meta: np.ndarray    # [I, Tl, TILE]
     cum: np.ndarray     # [I, prod(radixes)+1] rebased per shard
     rot: np.ndarray     # [dim, dim] (replicated)
     mu: np.ndarray      # [dim]
@@ -63,8 +61,10 @@ class ShardedSweep:
 
     @staticmethod
     def build(idx: SignalIndex, radius: float, n_shards: int,
-              tile: int = 1024) -> "ShardedSweep":
-        sw = SweepIndex.build(idx, radius, tile=tile)
+              tile: int = 1024,
+              cache_dir: str | None = None) -> "ShardedSweep":
+        sw = SweepIndex.build_cached(idx, radius, tile=tile,
+                                     cache_dir=cache_dir)
         T = sw.n_tiles
         Tl = -(-T // n_shards)
         pad = Tl * n_shards - T
@@ -75,7 +75,7 @@ class ShardedSweep:
             pt[:, 0, :] = PAD_COORD
             tiles = np.concatenate([tiles, pt], axis=0)
             meta = np.concatenate(
-                [meta, np.zeros((pad, 8, tile // 8), np.int32)], axis=0
+                [meta, np.zeros((pad, tile), np.int32)], axis=0
             )
         W_l = Tl * tile
         cum = np.stack([
@@ -84,7 +84,7 @@ class ShardedSweep:
         ])
         return ShardedSweep(
             tiles=tiles.reshape(n_shards, Tl, 8, tile),
-            meta=meta.reshape(n_shards, Tl, 8, tile // 8),
+            meta=meta.reshape(n_shards, Tl, tile),
             cum=cum, rot=sw.rot, mu=sw.mu, origin=sw.origin,
             geom=(sw.radixes, sw.span, sw.cell_width),
             n_windows=sw.n_windows, tile=tile,
@@ -92,7 +92,7 @@ class ShardedSweep:
 
 
 def make_sharded_round(mesh: Mesh, p: TurboParams, step, radius, dim,
-                       geom, chain_cfg, m, interpret=False):
+                       geom, chain_cfg, m):
     """Build the jitted multi-chip round: shard_map over ("data", "index")."""
     K = p.K
     n_index = mesh.shape["index"]
@@ -102,16 +102,18 @@ def make_sharded_round(mesh: Mesh, p: TurboParams, step, radius, dim,
         am = jax.lax.all_gather(m_meta, "index")          # [I, Q, K]
         ad = jax.lax.all_gather(m_d2, "index")
         aw = jax.lax.all_gather(wrote, "index")
-        valid = jnp.arange(K)[None, None, :] < aw[:, :, None]
-        d = jnp.where(valid, ad, INF)
-        d = d.transpose(1, 0, 2).reshape(Q, n_index * K)
-        mm = am.transpose(1, 0, 2).reshape(Q, n_index * K)
-        neg_d, ti = jax.lax.top_k(-d, K)                  # K smallest d^2
-        m_d2m = -neg_d
-        m_metam = jnp.take_along_axis(mm, ti, axis=1)
-        wrote_m = (m_d2m < INF / 2).sum(axis=1).astype(jnp.int32)
+        aw = jnp.broadcast_to(aw[:, :, None], am.shape)
+        valid = jnp.arange(K)[None, None, :] < aw
+        # the K smallest by (d^2, meta) over all shards, in that order:
+        # the single-device search's kept set and slot order
+        d = jnp.where(valid, ad, INF).transpose(1, 0, 2).reshape(Q, -1)
+        mm = jnp.where(valid, am, IMAX).transpose(1, 0, 2).reshape(Q, -1)
+        d, mm = jax.lax.sort((d, mm), dimension=1, num_keys=2)
+        wrote_m = jnp.minimum(aw[:, :, 0].sum(axis=0), K).astype(jnp.int32)
+        kept = jnp.arange(K)[None, :] < wrote_m[:, None]
         cnt_m = jax.lax.psum(cnt, "index")
-        return m_metam, m_d2m, cnt_m, wrote_m
+        return (jnp.where(kept, mm[:, :K], 0), jnp.where(kept, d[:, :K], 0.0),
+                cnt_m, wrote_m)
 
     def shard_fn(tiles_l, meta_l, cum_l, rot_l, mu_l, org_l, feats_l,
                  counts_l, n_full_l, ci_l, done_l,
@@ -120,7 +122,7 @@ def make_sharded_round(mesh: Mesh, p: TurboParams, step, radius, dim,
             tiles_l[0], meta_l[0], cum_l[0], rot_l, mu_l, org_l, feats_l,
             counts_l, n_full_l, ci_l,
             done_l, st_l, off_l, carry_l, rbf_l, rbi_l,
-            p, step, radius, dim, geom, chain_cfg, m, interpret,
+            p, step, radius, dim, geom, chain_cfg, m,
             merge_matches=merge_matches,
         )
 
@@ -142,9 +144,9 @@ def make_sharded_round(mesh: Mesh, p: TurboParams, step, radius, dim,
         d,                                                # ovf -> [2*D]
         d,                                                # host_sig -> [D*(Bl+2)]
     )
-    fn = shard_map(
+    fn = jax.shard_map(
         shard_fn, mesh=mesh, in_specs=in_specs, out_specs=out_specs,
-        check_rep=False,
+        check_vma=False,
     )
     return jax.jit(fn)
 
@@ -154,8 +156,7 @@ class TurboShardMapper(TurboMapper):
 
     Same host API and PAF semantics as TurboMapper; reads and index are
     placed with NamedSharding so XLA runs each round SPMD across the mesh
-    (data-parallel reads over ICI-connected chips, index tiles sharded
-    across their HBMs)."""
+    (data-parallel reads, index tiles sharded across device memories)."""
 
     def __init__(self, index: SignalIndex, config: SigmapConfig,
                  mesh: Mesh, params: TurboParams | None = None):
@@ -164,17 +165,15 @@ class TurboShardMapper(TurboMapper):
         if index.win_group is None:
             index.derive_window_metadata()
         self.num_refs = len(index.ref_names)
-        if params is None:
-            on_cpu = jax.default_backend() == "cpu"
-            params = TurboParams(peaks_impl="scan" if on_cpu else "pallas")
-        self.p = params
+        self.p = params = params or TurboParams()
         self.mesh = mesh
         self.n_data = mesh.shape["data"]
         self.n_index = mesh.shape["index"]
         if config.runtime.read_batch % self.n_data:
             raise ValueError("read_batch must divide the data axis")
         ss = ShardedSweep.build(
-            index, config.mapping.search_radius, self.n_index, tile=params.TILE
+            index, config.mapping.search_radius, self.n_index,
+            tile=params.TILE, cache_dir=config.runtime.sweep_cache_dir,
         )
         sh_i = NamedSharding(mesh, P("index"))
         sh_r = NamedSharding(mesh, P())
@@ -185,7 +184,6 @@ class TurboShardMapper(TurboMapper):
         self.mu = jax.device_put(ss.mu, sh_r)
         self.origin = jax.device_put(ss.origin, sh_r)
         self.geom = ss.geom
-        self.interpret = jax.default_backend() == "cpu"
         from concurrent.futures import ThreadPoolExecutor
         import threading
 
@@ -202,7 +200,7 @@ class TurboShardMapper(TurboMapper):
         m = config.mapping
         self._round = make_sharded_round(
             mesh, params, m.step_size, m.search_radius, index.dim,
-            ss.geom, config.chain, m, interpret=self.interpret,
+            ss.geom, config.chain, m,
         )
         self._sh_d = NamedSharding(mesh, P("data"))
         self._sh_r = sh_r

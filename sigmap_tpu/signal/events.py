@@ -1,14 +1,15 @@
 """Batched JAX event detection: raw signal chunks -> compressed feature
 signals, on-device.
 
-TPU-first reformulation of event.h:226-267 + sigmap.cc:1048-1083:
+Batched reformulation of event.h:226-267 + sigmap.cc:1048-1083:
 
 * prefix sums / t-statistics: vectorized fp32 cumsum + gathers over the
   whole [B, C] chunk batch (replaces the per-read loops, event.h:58-115);
 * the dual-detector peak state machine (event.h:117-182) carries ~10 scalars
   per read, so it runs as a `lax.scan` over time with all reads advancing in
-  lockstep on the VPU (a Pallas fused kernel provides the fast path, see
-  events_pallas.py);
+  lockstep (a Triton kernel for it was faster per call on an H100 but moved
+  nothing end to end, since the scan runs once per batch on the prefetch
+  thread; see PERF.md);
 * ragged outputs (peaks, events, compressed features) are held as padded
   [B, E] arrays + counts, compacted with cumsum-scatter.
 
@@ -185,9 +186,8 @@ def compact_nonzero(values: jax.Array, cap: int):
     """[B, N] (0 = empty) -> ([B, cap] packed, counts [B]).  Order-stable.
 
     Sort-based: a single-key row sort (nonzeros keep their column as the
-    key, zeros get column + N) packs nonzeros to the front in order.  TPU
-    scatter runs ~1 element/cycle, so the scatter formulation this
-    replaces cost ~65 ms at [1024, 8000]; the sort is ~2 ms."""
+    key, zeros get column + N) packs nonzeros to the front in order,
+    without a scatter."""
     B, N = values.shape
     mask = values > 0
     col = jnp.arange(N, dtype=jnp.int32)[None, :]
@@ -208,9 +208,9 @@ def events_from_peaks_batch(
 
     Per-event mean/stdv come from fp32 prefix-sum differences gathered at
     the segment boundaries — the reference's own formulation (CreateEvent,
-    event.h:184-198) and ~100x faster on TPU than the segment-sum scatter
-    it replaces.  One accuracy upgrade over the C++: samples are centered
-    by the chunk mean before the prefix sums, so the fp32 cancellation
+    event.h:184-198), with no segment-sum scatter.  One accuracy upgrade
+    over the C++: samples are centered by the chunk mean before the
+    prefix sums, so the fp32 cancellation
     noise the reference carries (ulp(ps) grows with position) shrinks by
     ~3 orders of magnitude; the mean adds the chunk mean back exactly.
 
@@ -303,7 +303,7 @@ def compress_features_batch(
 @partial(
     jax.jit,
     static_argnames=(
-        "cfg", "max_events", "max_features", "compress_delta", "peaks_impl",
+        "cfg", "max_events", "max_features", "compress_delta",
     ),
 )
 def batch_generate_events(
@@ -313,25 +313,15 @@ def batch_generate_events(
     max_events: int = 1024,
     max_features: int = 1024,
     compress_delta: float = 0.1,
-    peaks_impl: str = "scan",
 ):
     """Full device pipeline for a chunk batch: [B, C] raw pA samples ->
     (features [B,F], feature_stdvs [B,F], feature_counts [B], event_counts [B]).
 
     Equivalent to per-read GenerateEvents (sigmap.cc:1048-1083).
-    peaks_impl: "scan" (portable), "pallas" (TPU fast path), or
-    "pallas_interpret" (CPU testing of the kernel).
     """
     t1 = batch_tstat(chunks, lengths, cfg.window_length1)
     t2 = batch_tstat(chunks, lengths, cfg.window_length2)
-    if peaks_impl == "scan":
-        emits = detect_peaks_batch(t1, t2, lengths, cfg)
-    else:
-        from .events_pallas import detect_peaks_pallas
-
-        emits = detect_peaks_pallas(
-            t1, t2, lengths, cfg, interpret=(peaks_impl == "pallas_interpret")
-        )
+    emits = detect_peaks_batch(t1, t2, lengths, cfg)
     peaks1, n_peaks = compact_nonzero(emits, max_events)
     peaks = peaks1 - 1  # stored as pos+1
     means, stdvs, num_events = events_from_peaks_batch(
@@ -396,7 +386,7 @@ def compress_means_batch(norm, keep, max_features):
 @partial(
     jax.jit,
     static_argnames=(
-        "cfg", "max_events", "max_features", "compress_delta", "peaks_impl",
+        "cfg", "max_events", "max_features", "compress_delta",
     ),
 )
 def batch_generate_features(
@@ -406,47 +396,33 @@ def batch_generate_features(
     max_events: int = 1024,
     max_features: int = 1024,
     compress_delta: float = 0.1,
-    peaks_impl: str = "scan",
 ):
     """Lean turbo feature path: like batch_generate_events but means-only
-    (no stdvs) with the compression scan on the Pallas fast path.
-    Returns (features [B,F], feature_counts [B])."""
+    (no stdvs).  Returns (features [B,F], feature_counts [B])."""
     t1 = batch_tstat(chunks, lengths, cfg.window_length1)
     t2 = batch_tstat(chunks, lengths, cfg.window_length2)
-    if peaks_impl == "scan":
-        emits = detect_peaks_batch(t1, t2, lengths, cfg)
-    else:
-        from .events_pallas import detect_peaks_pallas
-
-        emits = detect_peaks_pallas(
-            t1, t2, lengths, cfg, interpret=(peaks_impl == "pallas_interpret")
-        )
+    emits = detect_peaks_batch(t1, t2, lengths, cfg)
     peaks1, n_peaks = compact_nonzero(emits, max_events)
     peaks = peaks1 - 1
     means, num_events = events_means_batch(
         peaks, n_peaks, chunks, lengths, max_events
     )
     norm = zscore_masked(means, num_events)
-    if peaks_impl == "scan":
-        def step(last, xs):
-            v, j = xs
-            valid = j < num_events
-            keep = valid & ((j == 0) | (jnp.abs(v - last) > compress_delta))
-            last = jnp.where(keep, v, last)
-            return last, keep
 
-        _, keeps = jax.lax.scan(
-            step,
-            jnp.zeros((norm.shape[0],), jnp.float32),
-            (norm.T, jnp.arange(norm.shape[1], dtype=jnp.int32)),
-        )
-        keep = keeps.T.astype(jnp.int32)
-    else:
-        from .events_pallas import compress_keep_pallas
+    # delta run-collapse keep mask (sigmap.cc:1072-1079): <= max_events
+    # trivial steps once per batch, off the round loop
+    def step(last, xs):
+        v, j = xs
+        valid = j < num_events
+        keep = valid & ((j == 0) | (jnp.abs(v - last) > compress_delta))
+        last = jnp.where(keep, v, last)
+        return last, keep
 
-        keep = compress_keep_pallas(
-            norm, num_events, compress_delta,
-            interpret=(peaks_impl == "pallas_interpret"),
-        )
+    _, keeps = jax.lax.scan(
+        step,
+        jnp.zeros((norm.shape[0],), jnp.float32),
+        (norm.T, jnp.arange(norm.shape[1], dtype=jnp.int32)),
+    )
+    keep = keeps.T.astype(jnp.int32)
     feats, counts = compress_means_batch(norm, keep, max_features)
     return feats, counts

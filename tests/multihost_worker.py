@@ -80,7 +80,7 @@ cfg = dataclasses.replace(
 mesh = Mesh(
     np.array(jax.devices()).reshape(4 * nprocs // 2, 2), ("data", "index")
 )
-p = TurboParams(S=256, K=32, RING=64, TILE=256, peaks_impl="scan")
+p = TurboParams(S=256, K=32, RING=64, TILE=256)
 tm = TurboShardMapper(idx, cfg, mesh, p)
 t0 = time.perf_counter()
 records = tm.streaming_map(signals)

@@ -1,9 +1,11 @@
-"""chain_fused kernel vs its numpy executable twin (chain_fused_ref).
+"""chain_fused vs its numpy executable twin (chain_fused_ref).
 
-Randomized anchors + carried chain state; the kernel runs in interpret
-mode on the CPU backend.  Gates/scores follow the reference chaining DP
+Randomized anchors + carried chain state, through both DP
+implementations: the plain XLA scan and the Triton kernel in interpret
+mode.  Gates/scores follow the reference chaining DP
 (spatial_index.cc:284-291,495-539) restricted to a ring band; the twin is
-the semantic spec, so kernel == twin exactly (same f32 ops).
+the semantic spec.  Integer fields must match exactly; f32 scores within
+1e-5 (the twin accumulates coef in float64).
 """
 
 import numpy as np
@@ -59,10 +61,14 @@ def _random_case(rng, A, B, CARRY, density=0.7, n_groups=4, clustered=True):
     return (a_t, a_q, a_d, a_g, c_score, c_stt, c_stq, c_n, c_sumd)
 
 
+IMPLS = ["plain", "triton_interpret"]
+
+
+@pytest.mark.parametrize("impl", IMPLS)
 @pytest.mark.parametrize("ring", [16, 64])
 @pytest.mark.parametrize("seed", [0, 1])
 @pytest.mark.parametrize("kb", [1, 8])
-def test_chain_fused_matches_ref(seed, ring, kb):
+def test_chain_fused_matches_ref(seed, ring, kb, impl):
     rng = np.random.default_rng(seed)
     A, B, CARRY = 96, 5, 16
     args = _random_case(rng, A, B, CARRY)
@@ -71,7 +77,7 @@ def test_chain_fused_matches_ref(seed, ring, kb):
 
     sum_f, sum_i, carry = chain_fused(
         *(jnp.asarray(a) for a in args), radius=RADIUS, dim=DIM,
-        ring=ring, cfg=cfg, interpret=True, kb=kb,
+        ring=ring, cfg=cfg, kb=kb, impl=impl,
     )
     rf, ri, rcarry = chain_fused_ref(
         *args, radius=RADIUS, dim=DIM, ring=ring, cfg=cfg, kb=kb
@@ -96,7 +102,8 @@ def test_chain_fused_matches_ref(seed, ring, kb):
             np.testing.assert_array_equal(got, want, err_msg=f"carry field {k}")
 
 
-def test_chain_fused_empty():
+@pytest.mark.parametrize("impl", IMPLS)
+def test_chain_fused_empty(impl):
     """All-invalid anchors: NEG scores, -1 group, empty carry."""
     import jax.numpy as jnp
 
@@ -108,7 +115,7 @@ def test_chain_fused_empty():
     c_i = jnp.zeros((CARRY, B), jnp.int32)
     sum_f, sum_i, carry = chain_fused(
         z_i, z_i, z_f, g, c_f, c_i, c_i, c_i, c_f,
-        radius=RADIUS, dim=DIM, ring=16, interpret=True,
+        radius=RADIUS, dim=DIM, ring=16, impl=impl,
     )
     assert float(np.asarray(sum_f)[0].max()) < -1e29
     assert (np.asarray(sum_i)[0] == -1).all()

@@ -31,7 +31,6 @@ def _run_cli(args):
 
     env = dict(os.environ)
     env["JAX_PLATFORMS"] = "cpu"
-    env["SIGMAP_TPU_FORCE_CPU"] = "1"
     return subprocess.run(
         [sys.executable, "-m", "sigmap_tpu.cli", *args],
         capture_output=True, text=True, env=env, timeout=600,

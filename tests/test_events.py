@@ -142,10 +142,9 @@ def test_compression_semantics():
     np.testing.assert_allclose(stds, [0.0, 2.0, 4.0])
 
 
-@pytest.mark.parametrize("impl", ["scan", "pallas_interpret"])
-def test_lean_features_match_full_pipeline(rng, impl):
-    """batch_generate_features (turbo's means-only fast path, with the
-    Pallas compression kernel) == batch_generate_events' features."""
+def test_lean_features_match_full_pipeline(rng):
+    """batch_generate_features (turbo's means-only path) ==
+    batch_generate_events' features."""
     from sigmap_tpu.signal.events import (
         batch_generate_events, batch_generate_features,
     )
@@ -157,10 +156,10 @@ def test_lean_features_match_full_pipeline(rng, impl):
             sigs[b, s : s + 11] += rng.normal(0, 7)
     lengths = np.array([C, C - 137, 600, 51, 0], np.int32)
     feats_full, _stdv, counts_full, _ = batch_generate_events(
-        sigs, lengths, peaks_impl=impl
+        sigs, lengths
     )
     feats_lean, counts_lean = batch_generate_features(
-        sigs, lengths, peaks_impl=impl
+        sigs, lengths
     )
     np.testing.assert_array_equal(
         np.asarray(counts_full), np.asarray(counts_lean)

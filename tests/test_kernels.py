@@ -1,74 +1,112 @@
-"""Pallas kernels in interpreter mode vs reference implementations."""
+"""Kernel plumbing: the implementation choice, the rotation's precision,
+the compile cache, and that each Triton kernel lowers for CUDA (checked
+here without a GPU)."""
 
 import numpy as np
 import pytest
 
+import jax
 import jax.numpy as jnp
 
-from sigmap_tpu.config import EventDetectorConfig
-from sigmap_tpu.signal.events import batch_tstat, detect_peaks_batch
-from sigmap_tpu.signal.events_pallas import detect_peaks_pallas
 
 
-def test_peaks_pallas_matches_scan(rng):
-    B, C = 6, 1200
-    sigs = rng.normal(80, 8, (B, C)).astype(np.float32)
-    for b in range(B):
-        for s in range(0, C, 9):
-            sigs[b, s : s + 9] += rng.normal(0, 6)
-    lengths = np.array([C, C - 100, 500, C, 50, 7], np.int32)
-    cfg = EventDetectorConfig()
-    t1 = batch_tstat(sigs, lengths, cfg.window_length1)
-    t2 = batch_tstat(sigs, lengths, cfg.window_length2)
-    ref = np.asarray(detect_peaks_batch(t1, t2, jnp.asarray(lengths), cfg))
-    pal = np.asarray(
-        detect_peaks_pallas(t1, t2, jnp.asarray(lengths), cfg, interpret=True)
+def test_impl_choice_by_backend(monkeypatch):
+    from sigmap_tpu.ops import impl
+
+    for layer in impl.LAYERS:
+        assert impl.choose(layer) == impl.PLAIN          # CPU default
+        assert impl.choose(layer, "triton_interpret") == "triton_interpret"
+        with pytest.raises(ValueError):
+            impl.choose(layer, "triton")                 # needs a GPU
+    with pytest.raises(ValueError):
+        impl.choose("nope")
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    for layer in impl.LAYERS:
+        assert impl.choose(layer) == impl.TRITON
+        assert impl.choose(layer, "plain") == impl.PLAIN
+        with pytest.raises(ValueError, match="interpret"):
+            impl.choose(layer, "triton_interpret")
+
+
+def test_rotation_matches_host_f32():
+    """Seeds rotated on device (HIGHEST precision) == the host f32
+    rotation the window store is built with, to f32 rounding."""
+    from sigmap_tpu.mapping.sweep_search import rotate
+
+    rng = np.random.default_rng(5)
+    dim = 6
+    x = rng.normal(0, 1.5, (4096, dim)).astype(np.float32)
+    rot = np.linalg.qr(rng.normal(size=(dim, dim)))[0].astype(np.float32)
+    mu = rng.normal(0, 0.1, dim).astype(np.float32)
+    host = np.empty_like(x)
+    host[:] = -(mu.astype(np.float64) @ rot).astype(np.float32)[None, :]
+    for d in range(dim):                   # index/sweep.py's accumulation
+        host += x[:, d, None] * rot[d][None, :]
+    dev = np.asarray(rotate(jnp.asarray(x), jnp.asarray(mu), jnp.asarray(rot)))
+    np.testing.assert_allclose(dev, host, rtol=0, atol=2e-6)
+
+
+def test_compile_cache_honours_env(monkeypatch, tmp_path):
+    from sigmap_tpu import utils
+
+    old = jax.config.jax_compilation_cache_dir
+    try:
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+        assert utils.enable_compilation_cache() == str(tmp_path)
+        assert jax.config.jax_compilation_cache_dir == old  # JAX reads env
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR")
+        path = utils.enable_compilation_cache()
+        assert path == utils.DEFAULT_COMPILE_CACHE
+        assert path.endswith(".jax_cache")
+        assert jax.config.jax_compilation_cache_dir == path
+    finally:
+        jax.config.update("jax_compilation_cache_dir", old)
+
+
+def _lowers_for_cuda(fn, *avals):
+    """Lower fn for CUDA without a GPU: runs the Pallas->Triton lowering
+    of every kernel in it (PTX compilation happens only on the card)."""
+    from jax import export
+
+    exp = export.export(
+        jax.jit(fn), platforms=["cuda"],
+        disabled_checks=[
+            export.DisabledSafetyCheck.custom_call("__gpu$xla.gpu.triton")
+        ],
+    )(*avals)
+    text = exp.mlir_module()
+    assert "__gpu$xla.gpu.triton" in text
+    return text
+
+
+def _sds(shape, dt):
+    return jax.ShapeDtypeStruct(shape, dt)
+
+
+@pytest.mark.parametrize("K", [8, 5])
+def test_sweep_kernel_lowers_for_cuda(K):
+    from sigmap_tpu.ops.sweep_kernel import _sweep_triton
+
+    Q, TILE, block, NO = 256, 1024, 32, 27
+    _lowers_for_cuda(
+        lambda *a: _sweep_triton(*a, radius=0.08, K=K, TILE=TILE, dim=6,
+                                 block=block),
+        _sds((Q, 8), jnp.float32), _sds((Q // block, 2 * NO + 1), jnp.int32),
+        _sds((10, 8, TILE), jnp.float32), _sds((10, TILE), jnp.int32),
     )
-    np.testing.assert_array_equal(ref, pal)
 
 
-def test_sdtw_kernel_matches_reference(rng):
-    from sigmap_tpu.ops.sdtw import sdtw_np
-    from sigmap_tpu.ops.sdtw_kernel import sdtw_pallas
+def test_chain_kernel_lowers_for_cuda():
+    from sigmap_tpu.config import ChainingConfig
+    from sigmap_tpu.ops import chain_fused as cf
 
-    B, T, Q = 4, 256, 64
-    ts = np.zeros((B, T), np.float32)
-    qs = np.zeros((B, Q), np.float32)
-    tl = np.zeros(B, np.int32)
-    ql = np.zeros(B, np.int32)
-    exp = []
-    for b in range(B):
-        nt = int(rng.integers(100, T))
-        nq = int(rng.integers(30, Q))
-        t = rng.normal(0, 1, nt).astype(np.float32)
-        lo = int(rng.integers(0, nt - nq))
-        q = (t[lo : lo + nq] + rng.normal(0, 0.05, nq)).astype(np.float32)
-        ts[b, :nt] = t
-        qs[b, :nq] = q
-        tl[b], ql[b] = nt, nq
-        exp.append(sdtw_np(t, q))
-    best, end = sdtw_pallas(ts, tl, qs, ql, interpret=True)
-    for b in range(B):
-        assert abs(float(best[b]) - exp[b][0]) < 1e-3 * max(1, exp[b][0])
-        assert int(end[b]) == exp[b][1]
-
-
-def test_sdtw_pallas_uniform_fast_path():
-    """Uniform t_len/q_len dispatches the steady-phase kernel; results
-    must equal the general path / numpy twin exactly."""
-    import numpy as np
-
-    from sigmap_tpu.ops.sdtw import sdtw_batch
-    from sigmap_tpu.ops.sdtw_kernel import sdtw_pallas
-
-    rng = np.random.default_rng(3)
-    B, T, Q = 5, 120, 48
-    ts = rng.normal(0, 1, (B, T)).astype(np.float32)
-    qs = rng.normal(0, 1, (B, Q)).astype(np.float32)
-    tl = np.full(B, T, np.int32)
-    ql = np.full(B, Q, np.int32)
-    b1, e1 = (np.asarray(x) for x in sdtw_pallas(ts, tl, qs, ql,
-                                                 interpret=True))
-    b2, e2 = (np.asarray(x) for x in sdtw_batch(ts, tl, qs, ql))
-    np.testing.assert_allclose(b1, b2, rtol=1e-5, atol=1e-5)
-    np.testing.assert_array_equal(e1, e2)
+    R, B, RING, KB = 64, 4, 48, 8
+    _lowers_for_cuda(
+        lambda *a: cf._dp_triton(*a[:4], a[4:12], a[12], a[13:], KB=KB,
+                                 radius=0.08, dim=6, cfg=ChainingConfig()),
+        *(_sds((R, B), dt) for dt in (jnp.int32, jnp.int32, jnp.float32,
+                                      jnp.int32)),
+        *(_sds((RING, B), dt) for dt in cf._RING_DT),
+        _sds((B,), jnp.int32),
+        *(_sds((B,), dt) for dt in cf._BEST_DT),
+    )

@@ -85,7 +85,7 @@ def test_two_process_turbo_shard(tmp_path):
     cfg = dataclasses.replace(
         cfg, runtime=dataclasses.replace(cfg.runtime, read_batch=8)
     )
-    p = TurboParams(S=256, K=32, RING=64, TILE=256, peaks_impl="scan")
+    p = TurboParams(S=256, K=32, RING=64, TILE=256)
     records = TurboMapper(idx, cfg, p).streaming_map(signals)
     want = []
     for rec in sorted(records, key=lambda r: r.read_id):

@@ -1,9 +1,10 @@
 """Sweep search: exact match-set parity with brute force / the oracle.
 
-The sweep stores windows in PCA-ROTATED coordinates (index/sweep.py) and
-accumulates d^2 directly in f32; rotation is an exact isometry, but f32
-rounding means pairs within a tiny band of the radius boundary can flip
-vs a raw-space oracle.  Assertions are therefore band-tolerant: matches
+Both search implementations (plain XLA, and the Triton kernel in interpret
+mode) run the same checks.  The sweep stores windows in PCA-ROTATED
+coordinates (index/sweep.py) and accumulates d^2 directly in f32; rotation
+is an exact isometry, but f32 rounding means pairs within a tiny band of
+the radius boundary can flip vs a raw-space oracle.  Assertions are therefore band-tolerant: matches
 strictly inside radius - EPS must all be found, nothing outside
 radius + EPS may be reported, and boundary pairs may go either way.
 """
@@ -20,6 +21,7 @@ from sigmap_tpu.mapping.sweep_search import SEED_PAD, sweep_round
 from sigmap_tpu.synth import random_genome
 
 EPS = 1e-4
+IMPLS = ["plain", "triton_interpret"]
 
 
 @pytest.fixture(scope="module")
@@ -47,7 +49,8 @@ def _raw_windows_by_meta(idx):
     return W[: idx.n_windows], metas[: idx.n_windows]
 
 
-def test_sweep_matches_brute(small_index):
+@pytest.mark.parametrize("impl", IMPLS)
+def test_sweep_matches_brute(small_index, impl):
     import jax.numpy as jnp
 
     cfg, idx = small_index
@@ -72,7 +75,7 @@ def test_sweep_matches_brute(small_index):
         jnp.asarray(sw.meta), jnp.asarray(sw.rot), jnp.asarray(sw.mu),
         jnp.asarray(sw.origin), radius=radius, K=K, TILE=sw.tile,
         radixes=sw.radixes, span=sw.span, cell_width=sw.cell_width,
-        interpret=True,
+        impl=impl,
     )
     m_meta = np.asarray(m_meta)
     m_d2 = np.asarray(m_d2)
@@ -100,7 +103,8 @@ def test_sweep_matches_brute(small_index):
     assert (wrote[-8:] == 0).all()
 
 
-def test_sweep_dense_cluster_truncation(small_index):
+@pytest.mark.parametrize("impl", IMPLS)
+def test_sweep_dense_cluster_truncation(small_index, impl):
     """Seeds whose matches exceed K: exact totals, wrote == min(total, K)."""
     import jax.numpy as jnp
 
@@ -115,7 +119,7 @@ def test_sweep_dense_cluster_truncation(small_index):
         jnp.asarray(sw.meta), jnp.asarray(sw.rot), jnp.asarray(sw.mu),
         jnp.asarray(sw.origin), radius=radius, K=8, TILE=sw.tile,
         radixes=sw.radixes, span=sw.span, cell_width=sw.cell_width,
-        interpret=True,
+        impl=impl,
     )
     d2 = ((W - qs[0, None, : idx.dim]) ** 2).sum(axis=1)
     lo = int((d2 < radius - EPS).sum())
@@ -124,7 +128,8 @@ def test_sweep_dense_cluster_truncation(small_index):
     assert (np.asarray(wrote) <= 8).all()
 
 
-def test_sweep_truncation_keeps_closest_k(small_index):
+@pytest.mark.parametrize("impl", IMPLS)
+def test_sweep_truncation_keeps_closest_k(small_index, impl):
     """When a seed's ball holds more than K matches, the K kept slots must
     be the K SMALLEST d^2 (up to the f32 rotated-basis boundary band) —
     the guarantee that the true-locus match survives truncation."""
@@ -147,7 +152,7 @@ def test_sweep_truncation_keeps_closest_k(small_index):
         jnp.asarray(sw.meta), jnp.asarray(sw.rot), jnp.asarray(sw.mu),
         jnp.asarray(sw.origin), radius=radius, K=K, TILE=sw.tile,
         radixes=sw.radixes, span=sw.span, cell_width=sw.cell_width,
-        interpret=True,
+        impl=impl,
     )
     m_d2 = np.asarray(m_d2)
     cnt = np.asarray(cnt)
@@ -164,3 +169,39 @@ def test_sweep_truncation_keeps_closest_k(small_index):
         # kept set = K smallest within the f32 boundary band
         np.testing.assert_allclose(kept, d2[:K], atol=5e-4)
     assert checked >= 3, "test inputs produced too few crowded balls"
+
+
+def test_sweep_implementations_agree_slot_for_slot(small_index):
+    """Under heavy truncation both implementations return the same kept
+    matches in the same (d^2, meta) slot order: chaining pushes a seed's
+    anchors in slot order, so the order is part of the result."""
+    import jax.numpy as jnp
+
+    cfg, idx = small_index
+    radius = 0.8
+    sw = SweepIndex.build(idx, radius, tile=256)
+    W, _metas = _raw_windows_by_meta(idx)
+    rng = np.random.default_rng(11)
+    Q = 64
+    qs = np.zeros((Q, 8), np.float32)
+    qs[:, : idx.dim] = W[rng.integers(0, sw.n_windows, Q)] + rng.normal(
+        0, 0.1, (Q, idx.dim)).astype(np.float32)
+    outs = [
+        [np.asarray(x) for x in sweep_round(
+            jnp.asarray(qs), jnp.asarray(sw.cum), jnp.asarray(sw.tiles),
+            jnp.asarray(sw.meta), jnp.asarray(sw.rot), jnp.asarray(sw.mu),
+            jnp.asarray(sw.origin), radius=radius, K=4, TILE=sw.tile,
+            radixes=sw.radixes, span=sw.span, cell_width=sw.cell_width,
+            impl=impl,
+        )]
+        for impl in IMPLS
+    ]
+    (m1, d1, c1, w1), (m2, d2, c2, w2) = outs
+    assert (w1 == 4).sum() >= 8, "too few truncated seeds"
+    np.testing.assert_array_equal(c1, c2)
+    np.testing.assert_array_equal(w1, w2)
+    np.testing.assert_array_equal(m1, m2)
+    np.testing.assert_array_equal(d1, d2)
+    kept = np.arange(4)[None, :] < w1[:, None]
+    key = np.where(kept, d1, np.inf)
+    assert (np.diff(key, axis=1) >= 0).all()

@@ -38,8 +38,7 @@ def test_turbo_maps_synthetic_reads(workload):
     cfg = dataclasses.replace(
         cfg, runtime=dataclasses.replace(cfg.runtime, read_batch=32)
     )
-    tm = TurboMapper(idx, cfg, TurboParams(S=256, K=16, RING=64, TILE=256,
-                                           peaks_impl="scan"))
+    tm = TurboMapper(idx, cfg, TurboParams(S=256, K=16, RING=64, TILE=256))
     records = tm.streaming_map(signals)
     assert len(records) == len(signals)
     by_name = {rec.read_name: rec for rec in records}
@@ -66,8 +65,7 @@ def test_turbo_concordance_with_exact(workload):
     )
     exact = Mapper(idx, cfg).streaming_map(signals)
     turbo = TurboMapper(
-        idx, cfg, TurboParams(S=256, K=16, RING=64, TILE=256,
-                              peaks_impl="scan")
+        idx, cfg, TurboParams(S=256, K=16, RING=64, TILE=256)
     ).streaming_map(signals)
     ex = {r.read_name: r for r in exact}
     tb = {r.read_name: r for r in turbo}
@@ -114,7 +112,7 @@ def test_turbo_rescue_recovers_truncation(workload):
     reads = reads[:32]
     # S=16/K=1: seed AND match truncation both bite (closest-K made K=2
     # at full S strong enough to map everything here)
-    base = dict(S=16, K=1, RING=64, TILE=256, peaks_impl="scan")
+    base = dict(S=16, K=1, RING=64, TILE=256)
     no_rescue = TurboMapper(
         idx, cfg, TurboParams(rescue=False, **base)
     ).streaming_map(signals)

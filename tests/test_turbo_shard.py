@@ -65,7 +65,7 @@ def test_turbo_shard_paf_equals_single(workload, mesh_shape):
     cfg = dataclasses.replace(
         cfg, runtime=dataclasses.replace(cfg.runtime, read_batch=8)
     )
-    p = TurboParams(S=256, K=32, RING=64, TILE=256, peaks_impl="scan")
+    p = TurboParams(S=256, K=32, RING=64, TILE=256)
     single = TurboMapper(idx, cfg, p).streaming_map(signals)
 
     D, I = mesh_shape

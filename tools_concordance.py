@@ -19,6 +19,7 @@ Usage: python tools_concordance.py [--genome-mb 12] [--reads 512]
 """
 import argparse
 import json
+import os
 import sys
 import time
 
@@ -148,7 +149,8 @@ def main():
     cfg = dataclasses.replace(
         cfg, runtime=dataclasses.replace(
             cfg.runtime, read_batch=args.batch, num_threads=4,
-            sweep_cache_dir="/root/.cache/sigmap_tpu_sweep",
+            sweep_cache_dir=os.path.join(
+                os.path.dirname(os.path.abspath(__file__)), ".sweep_cache"),
         )
     )
     pore = make_synthetic_pore_model(k=6, seed=0)
@@ -168,14 +170,10 @@ def main():
 
     import jax
 
-    on_cpu = jax.default_backend() == "cpu"
     params = None
-    if args.k is not None or args.ring is not None or on_cpu:
+    if args.k is not None or args.ring is not None:
         dflt = TurboParams()
-        params = TurboParams(
-            K=args.k or dflt.K, RING=args.ring or dflt.RING,
-            peaks_impl="scan" if on_cpu else "pallas",
-        )
+        params = TurboParams(K=args.k or dflt.K, RING=args.ring or dflt.RING)
     tm = TurboMapper(idx, cfg, params)
     tm.streaming_map(signals[: min(64, len(signals))])   # warmup (compile)
     t0 = time.perf_counter()
@@ -247,13 +245,10 @@ def main():
         "n_reads": n,
         "turbo_k": (params.K if params else TurboParams().K),
         "slack_bp": args.slack,
-        # environment: turbo throughput here is only meaningful on the
-        # TPU backend (interpret-mode Pallas on CPU is ~100x slower and
-        # NOT the production operating point)
+        # environment: turbo throughput is a device figure only on a GPU
         "environment": {
             "jax_backend": jax.default_backend(),
-            "device": str(jax.devices()[0]),
-            "turbo_interpret_mode": on_cpu,
+            "device_kind": jax.devices()[0].device_kind,
             "exact_engine": args.exact_engine,
         },
         "both_mapped": both_mapped,
